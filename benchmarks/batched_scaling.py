@@ -3,7 +3,7 @@
 The reference's only many-fits notion is a sequential Lisp list
 (dir->nv-walkers, nv-specific.lisp:58-66): S datasets cost S fits of
 wall time.  BatchedFit stacks them into one ensemble with per-dataset
-adaptation groups, so on a TPU the chip's idle lanes absorb the batch:
+adaptation groups, so on an accelerator its idle lanes absorb the batch:
 wall time should stay near-flat in S until the chip saturates, i.e.
 throughput (dataset-fits/sec) grows ~linearly.
 

@@ -1,8 +1,8 @@
 """Run the five BASELINE.json configurations end to end.
 
-Each config is a named fit scenario from /root/repo/BASELINE.json; this
-script runs a scaled-down version of each and prints a JSON summary line
-per config.  On TPU the walker counts scale up automatically.
+Each config is a named fit scenario from BASELINE.json; this script runs
+a scaled-down version of each and prints a JSON summary line per config.
+On a GPU the walker counts scale up automatically.
 
 Run: ``python examples/baseline_configs.py``
 """
@@ -42,24 +42,16 @@ def main():
 
     import lisp_mcmc_tpu as mfit
     from lisp_mcmc_tpu import nv
+    from lisp_mcmc_tpu.flagship import flagship_data
     from lisp_mcmc_tpu.models import gaussian_peak, line, lorder_mixed_bg
 
     mfit.enable_compilation_cache()
-    on_tpu = jax.default_backend() == "tpu"
-    W = 16384 if on_tpu else 256
+    W = 16384 if jax.default_backend() == "gpu" else 256
     rng = np.random.default_rng(0)
 
     # 1. test.lisp single-dataset fit (weighted normal + flat prior).
     t0 = time.perf_counter()
-    ref = "/root/reference/example-data.xls"
-    if os.path.exists(ref):
-        table = mfit.read_file_data(ref)
-        x, y = mfit.create_walker_data(table, 1, 4)
-    else:
-        x = np.linspace(2000, 3000, 334)
-        y = lorder_mixed_bg(x, {"scale": 2.3e-6, "linewidth": 16.5, "x0": 2789.0,
-                                "mix": 3.1, "bg0": 2.3e-7, "bg1": -1e-10})
-        y = np.asarray(y) + 1e-7 * rng.standard_normal(334)
+    x, y = flagship_data(0)
     w1 = mfit.walker_create(
         function=lorder_mixed_bg, data=(x, y),
         params={"scale": 1e-5, "linewidth": 7, "x0": 2200, "mix": 0.9,
@@ -67,7 +59,7 @@ def main():
         data_error=1e-7, n_walkers=W, seed=0, walker_jitter=0.05,
         log_likelihood=mfit.log_likelihood_normal_weighted,
     )
-    # summary-only run: skip history capture (slow on remote-tunnel hosts)
+    # summary-only run: no history capture
     w1.adaptive_steps(30000, collect_history=False)
     report("1-test.lisp-single-fit", w1, t0)
 
@@ -130,7 +122,7 @@ def main():
         return freqs, np.asarray(clean) + 2e-7 * rng.standard_normal(len(freqs))
 
     spectra = [spectrum(2858 + i, 2876 + i) for i in range(4)]
-    wps = 32768 if on_tpu else 64  # 4 spectra x wps walkers >= 1e5 on TPU
+    wps = 32768 if W > 256 else 64  # 4 spectra x wps walkers >= 1e5 on a GPU
     fit = nv.BatchedNVFit(spectra, walkers_per_spectrum=wps, seed=4)
     n_dev = len(jax.devices())
     if n_dev > 1 and fit.n_walkers % n_dev == 0:

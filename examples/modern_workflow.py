@@ -215,7 +215,7 @@ def main():
     # n_steps=3000/T=2 it fails (worst p ~ 2e-5 — some sims never find
     # their narrow mode, truths pin at rank 0/63) until the canonical
     # hot-anneal recipe is used; (b) at data_error=2e-6 it fails under
-    # the TPU's f32 default (worst p ~ 4e-4) while passing under f64 —
+    # the f32 default (worst p ~ 4e-4) while passing under f64 —
     # the f32 posterior widths are wrong at that SNR; (c) rwm-only
     # audits of THIS wide box are seed-lottery: large-linewidth truths
     # make scale-bg0 a ridge the random walk never traverses (measured

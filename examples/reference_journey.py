@@ -1,13 +1,14 @@
 """The reference's demo script (test.lisp), end to end.
 
-Every step of /root/reference/test.lisp has a working equivalent here:
+Every step of the reference's test.lisp has a working equivalent here:
 file discovery (test.lisp:10), ingestion (12), single-dataset fit + plots
 + derived quantity (14-31), save/load round trip (38-49, which the
 reference only documents in comments), and the two-dataset global fit
 with shared parameters (52-78).
 
 Run: ``python examples/reference_journey.py [data-file]``
-(defaults to the reference's example-data.xls when present).
+(without a file, the flagship data is generated in the reference file
+format by ``lisp_mcmc_tpu.flagship``).
 """
 
 import os
@@ -33,11 +34,10 @@ def find_data() -> str:
     # first argument is the test path, not a dataset).
     if len(sys.argv) > 1 and os.path.isfile(sys.argv[1]):
         return sys.argv[1]
-    for root in ("/root/reference", os.path.join(os.path.dirname(__file__), "..", "data")):
-        hits = mfit.get_filename(root, include=["example", ".xls"]) if os.path.isdir(root) else []
-        if hits:
-            return hits[0]
-    raise SystemExit("no example data found; pass a path")
+    from lisp_mcmc_tpu.flagship import write_flagship_table
+
+    return write_flagship_table(
+        os.path.join(tempfile.mkdtemp(prefix="mfit_"), "example-data.xls"))
 
 
 def ingest_and_fit(n_steps: int = 30000, n_walkers: int = 1024,

@@ -1,13 +1,12 @@
-"""lisp_mcmc_tpu — a TPU-native adaptive-MCMC curve-fitting framework.
+"""lisp_mcmc_tpu — an accelerator-native adaptive-MCMC curve-fitting framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-afranson/Lisp-MCMC (Metropolis-Hastings "walker" fitting with adaptive
-proposal covariance, annealing, auto-convergence, global multi-dataset
-fits, priors, plotting, and lab-data ingestion), redesigned for TPU:
-walker ensembles are ``(W, d)`` batches advanced by jitted ``lax.scan``
-chunks, likelihood reductions are fused masked sums (with a Pallas fast
-path), and chains shard across device meshes with a single pooled-
-covariance allreduce.
+A ground-up JAX/XLA rebuild of the capabilities of afranson/Lisp-MCMC
+(Metropolis-Hastings "walker" fitting with adaptive proposal covariance,
+annealing, auto-convergence, global multi-dataset fits, priors, plotting,
+and lab-data ingestion), redesigned for an accelerator: walker ensembles
+are ``(W, d)`` batches advanced by jitted ``lax.scan`` chunks, likelihood
+reductions are fused masked sums, and chains shard across device meshes
+with a single pooled-covariance allreduce.
 
 Quick start (the test.lisp journey):
 
@@ -95,32 +94,32 @@ from .walker_set import WalkerSet
 __version__ = "0.1.0"
 
 
-def enable_compilation_cache(path: str | None = None) -> str:
+def enable_compilation_cache() -> str:
     """Turn on JAX's persistent compilation cache for this process.
 
-    First TPU compiles of the chunk kernel take tens of seconds (remote
-    compile); with the cache, later processes reuse them in ~1s.  Safe to
-    call repeatedly.  Returns the cache directory used.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its
+    cache there and no other directory is set.  Otherwise the cache goes
+    to ``.jax_cache`` at the root of the checkout: a fixed path, since the
+    path is part of the cache key.  Safe to call repeatedly.  Returns the
+    cache directory used.
     """
     import os
 
     import jax
 
-    path = path or os.environ.get(
-        "LISP_MCMC_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "lisp_mcmc_tpu", "xla"),
-    )
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            ".jax_cache")
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    try:
-        # The XLA:CPU AOT-result cache can SIGILL when the loader's
-        # host-feature probe disagrees with the compile-time probe
-        # (warning observed live on this image); the jaxpr-level cache
-        # is the one that matters for remote-TPU compiles anyway.
+    if jax.default_backend() == "cpu":
+        # XLA:CPU's cached AOT results warn of SIGILL when the loader's
+        # host-feature probe disagrees with the compiler's; keep only the
+        # executable cache there.  Other backends keep XLA's own caches
+        # (on the GPU: the per-fusion autotune results).
         jax.config.update("jax_persistent_cache_enable_xla_caches", "none")
-    except Exception:
-        pass  # older jax without the knob
     return path
 
 __all__ = [

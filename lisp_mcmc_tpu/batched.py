@@ -2,7 +2,7 @@
 
 The reference's only many-fits notion is a Lisp list of walkers advanced
 sequentially (``dir->nv-walkers``, nv-specific.lisp:58-66): k datasets
-cost k full fits of wall time.  This module is the TPU walker-set —
+cost k full fits of wall time.  This module is the batched walker-set —
 the generalization of that pattern to a single ensemble:
 
   - S datasets stack into ``(S, P)`` arrays (shared static shape);

@@ -2,7 +2,7 @@
 
 Rebuilds ``mfit-walker-estop`` (mcmc-fitting.lisp:860-865, checked every
 iteration at 904 and 962): a REPL-settable flag that aborts a running fit.
-The TPU analogue checks the flag between scan *chunks* (the device never
+The device analogue checks the flag between scan *chunks* (the device never
 polls the host mid-chunk), so cancellation latency is one chunk (~200
 steps).
 """

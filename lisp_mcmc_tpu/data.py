@@ -9,10 +9,10 @@ Reference behavior being rebuilt (mcmc-fitting.lisp):
   - ``create-walker-data`` (827-831): column extraction from an ingested table.
   - ``to-double-floats`` (833-835): float coercion.
 
-TPU-first redesign: every dataset becomes a :class:`Dataset` of fixed-shape
-arrays padded to a lane-aligned length (multiple of 128) with an explicit
-mask, so the likelihood reduction is a static-shape masked sum that XLA/Pallas
-can tile.  x may be multi-column ``(N, C)`` for linked independent variables
+Device-first redesign: every dataset becomes a :class:`Dataset` of
+fixed-shape arrays padded to a multiple of 128 points with an explicit
+mask, so the likelihood reduction is a static-shape masked sum that XLA
+can fuse.  x may be multi-column ``(N, C)`` for linked independent variables
 (reference supports x tuples, mcmc-fitting.lisp:1136-1137).
 """
 
@@ -27,7 +27,7 @@ import numpy as np
 
 __all__ = ["Dataset", "clean_data", "clean_data_error", "create_walker_data", "pad_to"]
 
-LANE = 128  # TPU lane width; pad N to a multiple for kernel-friendly shapes.
+LANE = 128  # pad N to a multiple: few static shapes, aligned rows.
 
 
 def pad_to(n: int, multiple: int = LANE) -> int:

@@ -13,7 +13,7 @@ adds: per-dataset parameters drawn from a common population,
 so sparse spectra borrow strength from the rest of the grid instead of
 each fending for itself.
 
-TPU-first design decisions:
+Device-first design decisions:
 
 - **Non-centered parameterization is the representation, not an
   option.**  The walk coordinates are ``z[s, p]`` with

@@ -14,14 +14,14 @@ Rebuilds the reference's L1 statistical primitives (mcmc-fitting.lisp):
   - data-dependent likelihoods (``log-liklihood-fixer``, 842-845): a
     likelihood factory may return a specialized function when first called
 
-TPU-first design: each likelihood is a pure function
+Design: each likelihood is a pure function
 ``likelihood(fn, params_dict, dataset) -> scalar`` evaluated for ONE walker;
 the fitting kernel ``vmap``s it over the ``(W, d)`` walker batch so all N
 data points x W walkers become one fused elementwise block + masked
 reduction under XLA.  Masked sums give static shapes (padding contributes
-exactly 0).  A fused Pallas path for the hottest reduction lives in
-``ops/loglik_pallas.py``; these reference implementations are the
-always-correct fallback and the ground truth for its tests.
+exactly 0).  The whole-chunk GPU kernel (``ops/chunk_pallas.py``)
+re-derives the library reductions in its own term algebra; these
+implementations are the ground truth for its tests.
 
 The misspelling "liklihood" is deliberate in the reference; this rebuild
 uses the correct spelling and keeps aliases for discoverability.
@@ -120,7 +120,7 @@ def log_likelihood_poisson(fn, params, dataset: Dataset):
 
 
 def make_student_t_likelihood(nu: float = 4.0):
-    """Outlier-robust Student-t likelihood factory (new TPU surface).
+    """Outlier-robust Student-t likelihood factory (new surface).
 
     The Gaussian reduction (``log_likelihood_normal``) lets a single
     bad point veto the fit — its quadratic tail charges z^2/2 per

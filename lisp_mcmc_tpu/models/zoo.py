@@ -139,13 +139,10 @@ def lorder_mixed_bg(x, p):
         c1 = -2 cos(mix) lw^2 scale,  c2 = sin(mix) lw scale
 
     (c1/c2 are per-walker scalars, hoisted out of the point loop).  Same
-    math as the two-branch derivative form; measured 1.20x on the
-    flagship chunk (254.5M -> 305.7M steps/sec, TPU v5e, W=131072; the
-    kernel is VPU-compute-bound at ~95% of its op-mix roofline, so
-    fewer flops/point is the only lever — DESIGN.md "Roofline").  Max
-    relative deviation vs the unfactored form: 9.8e-7 (f32), ~1e-15
-    (f64); the frozen fixture in tests/test_flagship_regression.py pins
-    it.
+    math as the two-branch derivative form, with fewer flops and one
+    division per point.  Max relative deviation vs the unfactored form:
+    9.8e-7 (f32), ~1e-15 (f64); the frozen fixture in
+    tests/test_flagship_regression.py pins it.
     """
     u = x - p["x0"]
     lw = p["linewidth"]

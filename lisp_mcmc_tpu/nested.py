@@ -8,7 +8,7 @@ temperature ladder to tune, no anneal schedule, and its error estimate
 batching).  New capability beyond the reference, which has no model
 comparison at all.
 
-TPU-first shape of the classic algorithm (Skilling 2006):
+Accelerator-first shape of the classic algorithm (Skilling 2006):
 
 - the live set is a fixed ``(n_live, d)`` array — static shapes, one
   device-resident state;
@@ -272,8 +272,8 @@ def nested_sample(
     from .kernel import _neg_floor
 
     rng = np.random.default_rng(seed)
-    # dtype-aware: -1e300 literal overflows on cast to float32 (TPU
-    # default), spraying RuntimeWarnings on every trace.
+    # dtype-aware: -1e300 literal overflows on cast to float32 (the
+    # device default), spraying RuntimeWarnings on every trace.
     neg_floor = _neg_floor(dtype)
     live = jnp.asarray(rng.uniform(lo, hi, size=(n_live, d)), dtype)
     # Same NaN floor as the refill moves: a NaN here (e.g. a Poisson

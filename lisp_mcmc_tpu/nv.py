@@ -17,7 +17,7 @@ Rebuilds the domain layer end to end:
   - field-offset derived quantity (68-69): (mu2 - mu1) / 2 / 2.8 Oe
   - scan-grid export + heatmap (76-105)
 
-TPU scaling redesign (SURVEY §3.4): the reference fits k spectra
+Scaling redesign (SURVEY §3.4): the reference fits k spectra
 *sequentially* (k x wall time); here same-length spectra stack into a
 ``(S, P)`` batch fitted as ONE ensemble of S x W walkers with per-spectrum
 adaptation groups — the "1e5+ parallel walkers sharded across chips"
@@ -223,7 +223,7 @@ def fit_nv_dir(directory: str, n_steps: int | None = None, **kwargs) -> WalkerSe
 
 
 class BatchedNVFit(BatchedFit):
-    """S spectra fitted as one ensemble: the TPU walker-set.
+    """S spectra fitted as one ensemble: the batched walker-set.
 
     :class:`lisp_mcmc_tpu.batched.BatchedFit` with the NV pipeline's
     defaults: shared-frequency-grid check, per-spectrum noise estimates

@@ -16,7 +16,7 @@ Rebuilds the reference's L2 layer (mcmc-fitting.lisp):
     (mcmc-fitting.lisp:890) — the reference scales L, not the covariance;
     we replicate that exact policy for parity.
 
-TPU-first design: everything is batched and jit-safe.  The Cholesky is an
+Design: everything is batched and jit-safe.  The Cholesky is an
 unrolled column algorithm (d is small and static), with a division guard:
 where the reference relies on condition handlers upstream (891-894) to keep
 the previous L on numerical failure, we return an ``ok`` flag alongside L
@@ -54,7 +54,9 @@ def cholesky_clamped(a):
     for j in range(d):
         # r = a[j:, j] - L[j:, :j] @ L[j, :j]
         lj = L[..., j, :j]
-        r = a[..., j:, j] - jnp.einsum("...ik,...k->...i", L[..., j:, :j], lj)
+        # full f32: a TF32 product here would perturb every refreshed L
+        r = a[..., j:, j] - jnp.einsum("...ik,...k->...i", L[..., j:, :j], lj,
+                                       precision="highest")
         pivot = jnp.sqrt(jnp.maximum(jnp.asarray(0.0, dtype), r[..., 0]))
         safe = pivot > 0
         inv = jnp.where(safe, pivot, 1.0)
@@ -80,7 +82,9 @@ def sample_covariance(samples, weights=None):
         count = jnp.asarray(samples.shape[-2], samples.dtype)
         mean = jnp.mean(samples, axis=-2, keepdims=True)
         centered = samples - mean
-        return jnp.einsum("...mi,...mj->...ij", centered, centered) / count
+        # full f32: the refresh covariance must not round through TF32
+        return jnp.einsum("...mi,...mj->...ij", centered, centered,
+                          precision="highest") / count
     w = weights[..., None]
     count = jnp.maximum(jnp.sum(weights, axis=-1), 1.0)
     mean = jnp.sum(samples * w, axis=-2, keepdims=True) / count[..., None, None]
@@ -88,7 +92,8 @@ def sample_covariance(samples, weights=None):
     # One factor of w total (sum w (x-mu)(x-mu)^T / sum w): weighting BOTH
     # einsum operands squared the weights — invisible for 0/1 masks,
     # silently wrong for fractional weights.
-    return jnp.einsum("...mi,...mj->...ij", centered * w, centered) / count[..., None, None]
+    return jnp.einsum("...mi,...mj->...ij", centered * w, centered,
+                      precision="highest") / count[..., None, None]
 
 
 def moments_covariance(m_sum, m_outer, m_count):
@@ -96,7 +101,7 @@ def moments_covariance(m_sum, m_outer, m_count):
 
     ``m_sum``: (d,) sum of samples, ``m_outer``: (d, d) sum of outer
     products, ``m_count``: scalar count.  This is the streaming form of
-    ``lplist-covariance`` used by the on-device adaptation (the TPU
+    ``lplist-covariance`` used by the on-device adaptation (the on-device
     replacement for covariance-of-filtered-history; SURVEY §7 hard part b).
     Population-normalized like the reference (divide by count).
     """
@@ -123,10 +128,11 @@ def covariant_sample(key, mean, l_matrix):
 
     ``mean``: (..., d); ``l_matrix``: (d, d) shared across the batch (the
     pooled-adaptation design) or (..., d, d) per-walker.  Batched as one
-    einsum so the MXU/VPU sees a single large contraction instead of the
-    reference's per-step triple loop (690-697).
+    einsum: a single large contraction instead of the reference's
+    per-step triple loop (690-697).
     """
     z = jax.random.normal(key, mean.shape, mean.dtype)
+    # default precision: a symmetric draw stays symmetric under TF32
     if l_matrix.ndim == 2:
         return mean + jnp.einsum("ij,...j->...i", l_matrix, z)
     return mean + jnp.einsum("...ij,...j->...i", l_matrix, z)

@@ -1,4 +1,4 @@
-"""Chain-axis data parallelism over a TPU device mesh (reference C23/C24).
+"""Chain-axis data parallelism over a device mesh (reference C23/C24).
 
 The reference has no parallelism of any kind — its only "many chains"
 notion is a Lisp list of walkers advanced sequentially
@@ -6,7 +6,7 @@ notion is a Lisp list of walkers advanced sequentially
 BASELINE.json: walker ensembles shard along a ``chains`` mesh axis; the
 pooled-covariance moments, acceptance means, and best-step reductions in
 the kernel are plain ``jnp`` reductions over the walker axis, so under
-``jit`` with sharded inputs XLA inserts the ICI collectives
+``jit`` with sharded inputs XLA inserts the collectives
 (all-reduce of (d,)+(d,d) moments — the single cross-chain allreduce for
 pooled covariance adaptation that BASELINE.json specifies; the
 ``lplist-covariance``+``cholesky-decomp`` step at mcmc-fitting.lisp:614/583
@@ -74,10 +74,10 @@ def initialize_distributed(**kwargs) -> int:
     """Multi-host entry (reference C24 — entirely new surface).
 
     Wraps ``jax.distributed.initialize`` (coordinator address/process id
-    resolve from the TPU environment when omitted) and returns the global
-    device count.  After this, :func:`make_mesh` spans every chip in the
-    slice; chain-axis collectives ride ICI within a slice and DCN across
-    slices with no further code changes (GSPMD inserts them).  Idempotent:
+    resolve from the cluster environment when omitted) and returns the
+    global device count.  After this, :func:`make_mesh` spans every device
+    of every process; chain-axis collectives cross processes with no
+    further code changes (GSPMD inserts them).  Idempotent:
     a second call is a no-op.
 
     Failure policy: if a coordinator IS configured (explicit
@@ -111,7 +111,8 @@ def make_mesh(n_devices: int | None = None, axis_name: str = CHAIN_AXIS) -> Mesh
     """A 1-D mesh over ``n_devices`` (default: all available) for chain DP.
 
     MCMC ensembles are embarrassingly parallel along the walker axis, so a
-    single ``chains`` axis riding ICI is the right topology; parameter and
+    single ``chains`` axis is the right topology (the cards of a host are
+    joined all to all, so the mesh follows the algorithm); parameter and
     dataset axes stay replicated (they are tiny and read-only
     respectively).
     """
@@ -155,7 +156,7 @@ def shard_state(state: WalkerState, mesh: Mesh, axis_name: str = CHAIN_AXIS) -> 
     """Place an ensemble state onto the mesh (walkers split across devices).
 
     Requires ``W % n_devices == 0``; the caller picks W as a multiple of
-    the device count (and ideally of 8*devices for VPU sublanes).
+    the device count.
 
     Works on multi-PROCESS meshes too (after
     :func:`initialize_distributed`): ``device_put`` refuses shardings

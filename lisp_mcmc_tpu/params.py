@@ -5,7 +5,7 @@ plists ``(:scale 1d-5 :x0 2200 ...)`` and supports four "param styles"
 (multiple kwargs / single list / single vector / single 2D array; see
 ``mcmc-fitting.lisp:1078-1088`` and the style tag at 1153-1155).
 
-TPU-first redesign: the canonical on-device representation is a flat
+Device-first redesign: the canonical on-device representation is a flat
 ``(d,)`` float vector (batched to ``(W, d)`` over walkers).  Named access
 is a *host-side view* via :class:`ParamSpec`, which records the key order
 once at fit-creation time (the analogue of ``walker-param-keys``,

@@ -14,7 +14,7 @@ Rebuilds the reference's prior layer (mcmc-fitting.lisp):
   - hard constraint style from ``nv-specific.lisp:31-34``: -1e9 penalties
     for inequality/ratio constraints between parameters.
 
-TPU-first design: a prior is a pure function ``prior(params_dict, dataset)
+Design: a prior is a pure function ``prior(params_dict, dataset)
 -> scalar`` for one walker, vmapped over walkers by the kernel.  The bound
 penalty is fully vectorized (`jnp.where`), so it fuses into the posterior
 evaluation; there is no host-side control flow.
@@ -162,7 +162,7 @@ def resolve_prior(prior, params, dataset):
 #     zero-inside-bounds behavior; the normalized log-pdf for named
 #     distributions);
 #   - ``transform``/``inverse`` — the per-parameter inverse-CDF map from
-#     the unit cube, the TPU-friendly reduction that lets every existing
+#     the unit cube, the device-friendly reduction that lets every existing
 #     box-based estimator (ladder, SMC, nested) run unchanged on a
 #     u-space view of the fit where the declared prior IS the unit
 #     Lebesgue measure (see fit.unit_cube_view).
@@ -360,7 +360,7 @@ class LogNormal:
         # Clamped log keeps the trace NaN-free at x <= 0; the quadratic
         # term then drives the density to -inf-like values there anyway.
         # The clamp must be dtype-aware: a literal 1e-300 underflows to
-        # 0.0 in float32 (the TPU production dtype), making the "clamp"
+        # 0.0 in float32 (the production dtype), making the "clamp"
         # a no-op and the trace NaN at x <= 0.
         x = jnp.asarray(x)
         x = x.astype(jnp.result_type(x.dtype, float))
@@ -736,7 +736,7 @@ class MVGaussian(Mapping):
         keys = list(keys) if keys is not None else list(self._keys)
         p = self._perm(keys)
         z = rng.standard_normal((n, len(self._keys)))
-        th = self._mean + z @ self._chol.T                  # internal order
+        th = self._mean + z @ self._chol.T   # internal order; numpy f64 on host
         return th[:, p]
 
     def _theta_internal(self, theta, keys):
@@ -774,8 +774,9 @@ class MVGaussian(Mapping):
         for j, i in enumerate(p):
             inv[i] = j
         z_i = z_k[jnp.asarray(inv)]                         # internal order
-        th_i = jnp.asarray(self._mean, u.dtype) \
-            + jnp.asarray(self._chol, u.dtype) @ z_i
+        th_i = jnp.asarray(self._mean, u.dtype) + jnp.matmul(
+            jnp.asarray(self._chol, u.dtype), z_i,
+            precision="highest")    # full f32: a prior map, not a draw
         return th_i[jnp.asarray(p)].astype(u.dtype)
 
     def inverse(self, theta, keys):

@@ -9,7 +9,7 @@ curvature of the objective — the standard lab answer to "what error bar
 do I put on tau?" when a full posterior is overkill or the prior is
 meant to be flat.
 
-TPU-first shape: all (grid points x multistarts) profile optimizations
+Device-first shape: all (grid points x multistarts) profile optimizations
 run as ONE batched masked-Adam ensemble — the same whitened
 cosine-warm-restart machinery as :meth:`Walker.optimize`, with the
 pinned coordinate's gradient masked and its value re-pinned each step.

@@ -15,7 +15,7 @@ datasets one at a time (dir->nv-walkers, nv-specific.lisp:58-66), so a
 256-simulation calibration study would cost 256 sequential fits; here
 all simulated datasets fit as ONE :class:`~lisp_mcmc_tpu.BatchedFit`
 ensemble — one chunked kernel, per-dataset adaptation groups — so the
-whole study is a single TPU run.
+whole study is a single device run.
 """
 
 from __future__ import annotations
@@ -244,7 +244,7 @@ def sbc_check(
     biased.  ``result.p_values`` quantifies per parameter.
 
     SBC audits the NUMERICS too, not just the algorithm: at extreme
-    SNR the f32 default on TPU fails the audit where f64 passes
+    SNR the f32 default fails the audit where f64 passes
     (measured: the stiff 5-param Lorentzian at data_error=2e-6 on
     y ~ 1e-4 gives worst-p 4.4e-4 under f32, 0.01 under f64 —
     identical settings).  Pass ``dtype=jnp.float64`` (with x64

@@ -28,7 +28,7 @@ What it adds to the existing stack:
   ensemble from q — a posterior-shaped initialization that skips most
   of the annealing schedule.
 
-TPU-first shape: the whole optimization is ONE jitted ``lax.scan``
+Device-first shape: the whole optimization is ONE jitted ``lax.scan``
 (``n_steps`` iterations x ``n_samples`` reparameterized draws per
 iteration), datasets passed through as pytree arguments — same
 compile-once contract as the chunk kernel.  The unconstrained

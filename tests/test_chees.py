@@ -1,4 +1,4 @@
-"""ChEES-HMC kernel (FitConfig(kernel='chees')) — new TPU surface.
+"""ChEES-HMC kernel (FitConfig(kernel='chees')) — new surface.
 
 ChEES (Hoffman, Radul & Sountsov 2021) is the batched-hardware answer to
 NUTS: instead of per-chain recursive tree doubling (which cannot batch —

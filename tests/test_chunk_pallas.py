@@ -6,8 +6,11 @@ these tests validate it the way a sampler must be validated — RNG
 quality, accept-rule behavior, and agreement of the SAMPLED POSTERIOR
 with both the XLA kernel and the analytic target.
 
-Interpret mode on CPU (the TPU Mosaic path compiles the same kernel).
+The kernel runs in interpret mode here; tests/test_gpu.py compiles it
+for the card.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -17,11 +20,26 @@ import jax.numpy as jnp
 
 import lisp_mcmc_tpu as mfit
 from lisp_mcmc_tpu.models import line
+from lisp_mcmc_tpu.ops import chunk_pallas
 from lisp_mcmc_tpu.ops.chunk_pallas import (
-    _hash_bits,
+    _hash_u32,
     _uniform_from_bits,
     build_chunk_pallas,
 )
+
+
+def _hash_bits(shape, key1, key2):
+    """Hash bits over a row-major counter of ``shape``."""
+    n = int(np.prod(shape))
+    idx = jnp.arange(n, dtype=jnp.uint32).reshape(shape)
+    return _hash_u32(idx, jnp.uint32(key1), jnp.uint32(key2))
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Let the driver build the kernel in interpret mode on the CPU."""
+    monkeypatch.setattr(chunk_pallas, "build_chunk_pallas", functools.partial(
+        build_chunk_pallas, interpret=True))
 
 
 @pytest.fixture(scope="module")
@@ -138,9 +156,9 @@ def test_chunk_pallas_trace_and_moments_shapes(f32):
                                rtol=1e-4, atol=1e-3)
 
 
-def test_posterior_impl_pallas_chunk_integration(f32):
+def test_posterior_impl_pallas_chunk_integration(f32, interpret):
     """The opt-in rides the normal driver: adaptive_steps with
-    collect_history=False uses the Pallas chunk (interpret on CPU) and
+    collect_history=False uses the Pallas chunk (interpreted here) and
     converges; history phases transparently fall back to the XLA scan."""
     cfg = mfit.FitConfig(posterior_impl="pallas_chunk")
     w = _line_walker(n_walkers=256, seed=1, config=cfg)
@@ -154,10 +172,10 @@ def test_posterior_impl_pallas_chunk_integration(f32):
     assert len(w) > 0
 
 
-def test_pallas_chunk_dataset_reading_prior_fails_loudly(f32):
+def test_pallas_chunk_dataset_reading_prior_fails_loudly(f32, interpret):
     """A prior that silently branches on dataset=None computes a
-    different posterior in-kernel; the fused equivalence probe that
-    gates pallas_chunk must raise, never run the wrong kernel."""
+    different posterior in-kernel; the term-algebra check that gates
+    pallas_chunk must raise, never run the wrong kernel."""
     import numpy as np
 
     def sneaky_prior(params, dataset):
@@ -189,3 +207,12 @@ def test_chunk_pallas_scope_gating(f32):
         w.n_walkers, w.dtype) is None
     assert build_chunk_pallas(
         w.terms, w.spec, w.config, w.n_walkers, jnp.float64) is None
+
+
+def test_pallas_chunk_off_gpu_raises(f32):
+    """Off the GPU the kernel is never interpreted behind the user's back:
+    asking for it through the driver raises."""
+    cfg = mfit.FitConfig(posterior_impl="pallas_chunk")
+    w = _line_walker(n_walkers=256, seed=0, config=cfg)
+    with pytest.raises(ValueError, match="GPU"):
+        w.adaptive_steps(400, auto=None, collect_history=False)

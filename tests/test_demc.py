@@ -1,4 +1,4 @@
-"""Differential-evolution kernel (FitConfig(kernel='demc')) — new TPU
+"""Differential-evolution kernel (FitConfig(kernel='demc')) — new
 surface: ter Braak (2006) ensemble moves, red-black half updates on the
 same chunked-scan machinery as rwm/stretch.  Proposals step along the
 DIFFERENCE of two distinct complementary walkers, so the step-direction
@@ -165,8 +165,8 @@ def test_demc_batched_fit():
 
 
 def test_demc_beats_stretch_per_step_at_high_d():
-    """The design claim behind the kernel (pinned at CPU scale; the TPU
-    d=48 table measures 2.4x): at high dimension the stretch move's
+    """The design claim behind the kernel (pinned at CPU scale): at high
+    dimension the stretch move's
     single-line proposals thin out while demc's full-rank pair
     differences keep decorrelating — demc's min-ESS per step must beat
     stretch's on the same correlated target."""

@@ -1,4 +1,4 @@
-"""Hamiltonian kernel (FitConfig(kernel='hmc')) — new TPU surface:
+"""Hamiltonian kernel (FitConfig(kernel='hmc')) — new surface:
 leapfrog trajectories in L-whitened coordinates via autodiff, sharing the
 chunked-scan/adaptation machinery (band shifted to HMC's ~0.65 optimum,
 L refreshed from the ensemble position covariance)."""

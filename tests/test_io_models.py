@@ -1,4 +1,9 @@
-"""File ingestion against the reference's example-data.xls + model zoo."""
+"""File ingestion against the reference file format + model zoo.
+
+The reference's example-data.xls is not distributed here; the flagship
+generator writes the same format (``lisp_mcmc_tpu.flagship``), and the
+``example_table_path`` fixture (tests/conftest.py) provides it.
+"""
 
 import numpy as np
 import pytest
@@ -19,26 +24,31 @@ from lisp_mcmc_tpu.models import (
     stretched_exponential,
 )
 
-REFERENCE_DATA = "/root/reference/example-data.xls"
-
-
-def test_file_specs_example_data():
+def test_file_specs_example_data(example_table_path):
     # example-data.xls: tab-separated, 1 header line, 9 columns, 334 rows
     # (SURVEY §0).
-    specs = file_specs(REFERENCE_DATA)
+    specs = file_specs(example_table_path)
     assert specs["delim"] == "\t"
     assert specs["header_lines"] == 1
     assert specs["columns"] == 9
     assert specs["pages"] == 1
 
 
-def test_read_file_data_example_data():
-    cols = read_file_data(REFERENCE_DATA)
+def test_read_file_data_example_data(example_table_path):
+    from lisp_mcmc_tpu.data import create_walker_data
+    from lisp_mcmc_tpu.flagship import flagship_data
+
+    cols = read_file_data(example_table_path)
     assert len(cols) == 9
     assert all(len(c) == 334 for c in cols)
-    # First data row: 2.000E+3 \t 2.000E+3 \t -4.172E-7 ...
+    # The sweep starts at 2000 in the setpoint and field columns.
     assert cols[0][0] == pytest.approx(2000.0)
-    assert cols[2][0] == pytest.approx(-4.172e-7)
+    assert cols[1][0] == pytest.approx(2000.0)
+    # test.lisp's columns 1 (field) and 4 (signal) read back exactly.
+    x, y = create_walker_data(cols, 1, 4)
+    x0, y0 = flagship_data(0)
+    np.testing.assert_array_equal(x, x0)
+    np.testing.assert_array_equal(y, y0)
 
 
 def test_read_file_handles_semicolon(tmp_path):

@@ -1,4 +1,4 @@
-"""Gradient-based MALA kernel (FitConfig(kernel='mala')) — new TPU
+"""Gradient-based MALA kernel (FitConfig(kernel='mala')) — new
 surface: preconditioned Langevin proposals via autodiff, sharing the
 chunked-scan/adaptation machinery with the reference's random-walk MH."""
 
@@ -8,6 +8,7 @@ import pytest
 
 import lisp_mcmc_tpu as mfit
 from lisp_mcmc_tpu.kernel import FitConfig
+from lisp_mcmc_tpu.ops.chunk_pallas import build_chunk_pallas
 from lisp_mcmc_tpu.models import line
 
 
@@ -144,17 +145,19 @@ def test_mala_auto_stop_uses_shifted_band():
 
 def test_mala_falls_back_from_pallas():
     """pallas_call has no autodiff rule; kernel='mala' must keep the XLA
-    posterior even when posterior_impl='pallas' is forced."""
+    scan even when posterior_impl='pallas_chunk' is asked for."""
     rng = np.random.default_rng(0)
     x = np.linspace(0.0, 10.0, 50)
     y = 2.0 * x + 1.0 + 0.1 * rng.standard_normal(50)
     w = mfit.walker_create(
         function=line, data=(x, y), params={"m": 1.5, "b": 0.5},
         data_error=0.1, n_walkers=128, seed=0, walker_jitter=0.05,
-        config=FitConfig(kernel="mala", posterior_impl="pallas"),
+        config=FitConfig(kernel="mala", posterior_impl="pallas_chunk"),
+        dtype=jnp.float32,
     )
-    assert w._batched_posterior() is None
-    w.adaptive_steps(600, auto=None)  # must not crash in linearization
+    assert build_chunk_pallas(w.terms, w.spec, w.config, w.n_walkers,
+                              w.dtype) is None
+    w.adaptive_steps(600, auto=None, collect_history=False)  # must not crash in linearization
     assert np.isfinite(w.most_likely_step()[0])
 
 

@@ -7,7 +7,7 @@ import pytest
 
 import lisp_mcmc_tpu as mfit
 from lisp_mcmc_tpu.data import clean_data
-from lisp_mcmc_tpu.ops.loglik_pallas import build_fused_posterior
+from lisp_mcmc_tpu.ops.chunk_pallas import fused_terms_posterior
 
 
 def plane(x, p):
@@ -44,9 +44,8 @@ def test_fit_recovers_plane_coefficients(rng):
     assert best["a"] == pytest.approx(1.5, abs=0.05)
     assert best["b"] == pytest.approx(-0.7, abs=0.05)
     assert best["c"] == pytest.approx(0.3, abs=0.05)
-    # the fused pallas kernel correctly declines multi-column x
-    assert build_fused_posterior(w.terms, w.spec, w.dtype, w.n_walkers,
-                                 interpret=True) is None
+    # the chunk kernel's term algebra correctly declines multi-column x
+    assert fused_terms_posterior(w.terms, w.spec, w.dtype) is None
 
 
 def test_refit_cv_multicolumn_anchor(rng):

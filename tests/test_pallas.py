@@ -1,10 +1,11 @@
-"""Fused Pallas posterior kernel vs the XLA vmap ground truth.
+"""The chunk kernel's term algebra vs the XLA vmap ground truth.
 
 The XLA likelihood reductions in lisp_mcmc_tpu/likelihoods.py are the
-reference implementation (SURVEY §7 phase 5); the Pallas kernel must agree
-point-for-point for every fusable likelihood kind, and must decline
-(return None) outside its coverage.  Off-TPU the kernel runs in
-interpreter mode, which exercises the same tracing/layout code.
+reference implementation; the kernel's term algebra (priors evaluated
+with ``dataset=None``, walker-independent constants hoisted), written in
+plain ``jnp`` as ``fused_terms_posterior``, must agree point-for-point
+for every fusable likelihood kind and decline (return None) outside its
+coverage.  The kernel itself is tested in tests/test_chunk_pallas.py.
 """
 
 import jax
@@ -13,130 +14,90 @@ import numpy as np
 import pytest
 
 import lisp_mcmc_tpu as mfit
-from lisp_mcmc_tpu.kernel import FitConfig
 from lisp_mcmc_tpu.likelihoods import (
     log_likelihood_normal_cutoff,
     log_likelihood_poisson,
 )
-from lisp_mcmc_tpu.models import gaussian_peak, line, lorder_mixed_bg
-from lisp_mcmc_tpu.ops.loglik_pallas import build_fused_posterior, pick_block
+from lisp_mcmc_tpu.models import gaussian_peak, line
+from lisp_mcmc_tpu.ops.chunk_pallas import fused_terms_posterior, pick_block
 from lisp_mcmc_tpu.priors import make_bounds_prior
 
 
-def _spread_positions(walker, rng, scale=0.02):
-    base = np.asarray(walker.state.position)
-    return jnp.asarray(base * (1.0 + scale * rng.standard_normal(base.shape)))
-
-
-def _build(walker):
-    return build_fused_posterior(
-        walker.terms, walker.spec, walker.dtype, walker.n_walkers, interpret=True
-    )
-
-
 def test_pick_block():
-    assert pick_block(65536) == 2048
-    assert pick_block(256) == 256
-    assert pick_block(384) == 128
+    assert pick_block(131072) == 128
+    assert pick_block(131072, 256) == 256
+    assert pick_block(96) == 32
+    assert pick_block(384, 200) == 128
     assert pick_block(100) is None
 
 
-def test_fused_normal_matches_xla(rng):
+def _normal(rng):
     x = np.linspace(0.0, 10.0, 50)
     y = 2.0 * x + 1.0 + 0.1 * rng.standard_normal(50)
-    w = mfit.walker_create(
-        function=line, data=(x, y), params={"m": 2.0, "b": 1.0},
-        data_error=0.1, n_walkers=256, seed=1, walker_jitter=0.1,
-    )
-    fused = _build(w)
-    assert fused is not None
-    pos = _spread_positions(w, rng)
-    lp_ref = jax.vmap(w._log_post_one, in_axes=(0, None))(pos, w._posterior_data())
-    lp_pal = fused(pos)
-    np.testing.assert_allclose(np.asarray(lp_pal), np.asarray(lp_ref), rtol=1e-9)
+    return dict(function=line, data=(x, y), params={"m": 2.0, "b": 1.0},
+                data_error=0.1, n_walkers=256, seed=1, walker_jitter=0.1), 0.02
 
 
-def test_fused_with_bounds_prior_and_multi_dataset(rng):
+def _bounds_multi(rng):
     x = np.linspace(-5.0, 5.0, 40)
     y1 = np.exp(-0.5 * x**2) + 0.01 * rng.standard_normal(40)
     y2 = 3.0 * x - 0.5 + 0.05 * rng.standard_normal(40)
     prior = make_bounds_prior({"scale": (0.1, 10.0), "sigma": (0.1, 5.0)})
-    w = mfit.walker_create(
-        function=[gaussian_peak, line],
-        data=[(x, y1), (x, y2)],
+    return dict(
+        function=[gaussian_peak, line], data=[(x, y1), (x, y2)],
         params={"scale": 1.0, "x0": 0.0, "sigma": 1.0, "m": 3.0, "b": -0.5},
-        data_error=[0.01, 0.05],
-        log_prior=[prior, None],
+        data_error=[0.01, 0.05], log_prior=[prior, None],
         n_walkers=128, seed=2, walker_jitter=0.3,
-    )
-    fused = _build(w)
-    assert fused is not None
-    pos = _spread_positions(w, rng, scale=0.5)  # push some walkers out of bounds
-    lp_ref = jax.vmap(w._log_post_one, in_axes=(0, None))(pos, w._posterior_data())
-    lp_pal = fused(pos)
-    np.testing.assert_allclose(np.asarray(lp_pal), np.asarray(lp_ref), rtol=1e-9)
+    ), 0.5  # pushes some walkers out of bounds
 
 
-def test_fused_cutoff_and_poisson(rng):
+def _cutoff(rng):
     x = np.linspace(0.0, 4.0, 30)
     y = np.exp(-0.5 * (x - 2.0) ** 2) + 0.02 * rng.standard_normal(30)
-    w = mfit.walker_create(
+    return dict(
         function=gaussian_peak, data=(x, y),
         params={"scale": 1.0, "x0": 2.0, "sigma": 1.0},
         data_error=1e-4,  # tiny error so the -5000 clamp actually bites
         log_likelihood=log_likelihood_normal_cutoff,
         n_walkers=128, seed=3, walker_jitter=0.4,
-    )
-    fused = _build(w)
-    assert fused is not None
-    pos = _spread_positions(w, rng, scale=0.5)
-    np.testing.assert_allclose(
-        np.asarray(fused(pos)),
-        np.asarray(jax.vmap(w._log_post_one, in_axes=(0, None))(pos, w._posterior_data())),
-        rtol=1e-9
-    )
+    ), 0.5
 
+
+def _poisson(rng):
+    x = np.linspace(0.0, 4.0, 30)
     counts = rng.poisson(lam=5.0 + 2.0 * x).astype(float)
-    wp = mfit.walker_create(
+    return dict(
         function=line, data=(x, counts), params={"m": 2.0, "b": 5.0},
         log_likelihood=log_likelihood_poisson,
         n_walkers=128, seed=4, walker_jitter=0.05,
-    )
-    fused_p = _build(wp)
-    assert fused_p is not None
-    pos = _spread_positions(wp, rng, scale=0.05)
-    np.testing.assert_allclose(
-        np.asarray(fused_p(pos)),
-        np.asarray(jax.vmap(wp._log_post_one, in_axes=(0, None))(pos, wp._posterior_data())),
-        rtol=1e-9
-    )
+    ), 0.05
 
 
-def test_fused_declines_custom_likelihood(rng):
+def _custom(rng):
     x = np.linspace(0.0, 1.0, 16)
-    y = x.copy()
 
     def custom(fn, params, dataset):
         mu = fn(dataset.x, params)
         return -jnp.sum(jnp.abs(dataset.y - mu) * dataset.mask)
 
-    w = mfit.walker_create(
-        function=line, data=(x, y), params={"m": 1.0, "b": 0.0},
-        log_likelihood=custom, n_walkers=128, seed=5,
-    )
-    assert _build(w) is None
+    return dict(function=line, data=(x, x.copy()), params={"m": 1.0, "b": 0.0},
+                log_likelihood=custom, n_walkers=128, seed=5), None
 
 
-def test_fit_runs_with_forced_pallas_impl(rng):
-    x = np.linspace(0.0, 10.0, 50)
-    y = 2.0 * x + 1.0 + 0.1 * rng.standard_normal(50)
-    cfg = FitConfig(posterior_impl="pallas", n_steps=600)
-    w = mfit.walker_create(
-        function=line, data=(x, y), params={"m": 1.5, "b": 0.5},
-        data_error=0.1, n_walkers=128, seed=6, walker_jitter=0.1, config=cfg,
-    )
-    assert w._batched_posterior() is not None
-    w.adaptive_steps(600, auto=None)
-    best = w.most_likely_params()
-    assert abs(best["m"] - 2.0) < 0.3
-    assert abs(best["b"] - 1.0) < 1.0
+@pytest.mark.parametrize("case", [_normal, _bounds_multi, _cutoff, _poisson,
+                                  _custom],
+                         ids=["normal", "bounds_prior_multi_dataset",
+                              "cutoff", "poisson", "declines_custom"])
+def test_fused_terms_match_xla(rng, case):
+    kwargs, spread = case(rng)
+    w = mfit.walker_create(**kwargs)
+    fused = fused_terms_posterior(w.terms, w.spec, w.dtype)
+    if spread is None:
+        assert fused is None
+        return
+    assert fused is not None
+    base = np.asarray(w.state.position)
+    pos = jnp.asarray(base * (1.0 + spread * rng.standard_normal(base.shape)))
+    lp_ref = jax.vmap(w._log_post_one, in_axes=(0, None))(pos, w._posterior_data())
+    np.testing.assert_allclose(np.asarray(fused(pos)), np.asarray(lp_ref),
+                               rtol=1e-9)

@@ -47,6 +47,16 @@ def test_shard_state_placement(mesh):
     assert state.l_matrix.sharding.is_fully_replicated
 
 
+def test_shard_replicates_datasets(mesh):
+    """Walker.shard leaves nothing on the first device alone: the datasets
+    are replicated on every device of the mesh, once."""
+    w = _make_walker(64).shard(mesh)
+    for leaf in jax.tree_util.tree_leaves(w._posterior_data()):
+        assert len(leaf.sharding.device_set) == 8
+        assert leaf.sharding.is_fully_replicated
+    assert len(w.state.l_matrix.sharding.device_set) == 8
+
+
 def test_shard_requires_divisible_walkers(mesh):
     w = _make_walker(62)
     with pytest.raises(ValueError, match="divisible"):

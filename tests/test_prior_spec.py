@@ -502,7 +502,7 @@ def test_observability_hooks_smc_and_nested(conjugate):
 
 # ------------------------------------------------- review-fix regressions
 def test_lognormal_f32_smooth_pdf_finite_at_nonpositive():
-    """The x<=0 log clamp must survive float32 (the TPU production
+    """The x<=0 log clamp must survive float32 (the production
     dtype): a literal 1e-300 underflows to 0.0 there, turning the
     'NaN-free' clamp into log(0) = NaN for every proposal at x <= 0."""
     ln = LogNormal(0.0, 1.0)

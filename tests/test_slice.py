@@ -1,4 +1,4 @@
-"""Ensemble slice kernel (FitConfig(kernel='slice')) — new TPU surface:
+"""Ensemble slice kernel (FitConfig(kernel='slice')) — new surface:
 Karamanis & Beutler (2021) ensemble slice sampling on the same red-black
 chunked-scan machinery as stretch/demc.  Directions are walker-pair
 differences (the differential move), the 1-d move is Neal (2003)

@@ -1,4 +1,4 @@
-"""Affine-invariant stretch kernel (FitConfig(kernel='stretch')) — new TPU
+"""Affine-invariant stretch kernel (FitConfig(kernel='stretch')) — new
 surface: Goodman-Weare ensemble moves with red-black half updates, sharing
 the chunked-scan machinery with the reference's random-walk MH.  The
 ensemble itself is the proposal distribution, so there is no L-matrix to
@@ -10,6 +10,7 @@ import pytest
 
 import lisp_mcmc_tpu as mfit
 from lisp_mcmc_tpu.kernel import FitConfig
+from lisp_mcmc_tpu.ops.chunk_pallas import build_chunk_pallas
 from lisp_mcmc_tpu.models import line
 
 
@@ -127,16 +128,18 @@ def test_stretch_rejects_tempering():
 
 
 def test_stretch_ignores_forced_pallas():
-    """posterior_impl='pallas' must silently keep the XLA path (the fused
-    kernel is shape-specialized to the full ensemble)."""
+    """posterior_impl='pallas_chunk' must silently keep the XLA scan (the
+    chunk kernel covers rwm only)."""
     rng = np.random.default_rng(0)
     x = np.linspace(0.0, 10.0, 50)
     y = 2.0 * x + 1.0 + 0.1 * rng.standard_normal(50)
     w = mfit.walker_create(
         function=line, data=(x, y), params={"m": 1.5, "b": 0.5},
         data_error=0.1, n_walkers=128, seed=0, walker_jitter=0.05,
-        config=FitConfig(kernel="stretch", posterior_impl="pallas"),
+        config=FitConfig(kernel="stretch", posterior_impl="pallas_chunk"),
+        dtype=jnp.float32,
     )
-    assert w._batched_posterior() is None
-    w.adaptive_steps(600, auto=None)
+    assert build_chunk_pallas(w.terms, w.spec, w.config, w.n_walkers,
+                              w.dtype) is None
+    w.adaptive_steps(600, auto=None, collect_history=False)
     assert np.isfinite(w.most_likely_step()[0])
